@@ -2,10 +2,10 @@
 //
 // The reference builds its acceleration structure natively (Rust HLBVH with
 // Morton encoding across worker threads, bvh.rs:307-751).  This C++ builder
-// is the equivalent host-side native component for the TPU framework: a
-// binned-SAH recursive build (12 buckets, like the reference's upper-SAH
-// stage) emitting the flattened DFS node array the device traversal kernels
-// consume directly:
+// is the equivalent host-side native component here: a binned-SAH
+// recursive build (12 buckets, like the reference's upper-SAH stage)
+// emitting the flattened DFS node array the device traversal consumes
+// directly:
 //
 //   interior node i: left child = i+1, right child = offset[i]
 //   leaf node i:     primitives prim_order[offset[i] .. offset[i]+n_prims[i])

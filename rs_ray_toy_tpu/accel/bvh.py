@@ -15,9 +15,9 @@ back into the triangle/sphere SoA tables.  A C++ builder drop-in replaces
 this for huge scenes (host build is O(T log T) python-recursion; fine to
 ~1e5 prims).
 
-Traversal happens on device (traverse.py / Pallas kernel) over these
-arrays; scenes under BRUTE_FORCE_CUTOFF skip the BVH entirely — on TPU a
-dense all-pairs test beats pointer chasing for small prim counts.
+Traversal happens on device (traverse.py) over these arrays; scenes under
+BRUTE_FORCE_CUTOFF skip the BVH entirely: for small prim counts a dense
+all-pairs test needs no per-ray stack or data-dependent loop.
 """
 
 from dataclasses import dataclass

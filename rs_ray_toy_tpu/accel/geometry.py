@@ -3,7 +3,7 @@
 All tests are data-parallel: a ray batch against primitive tables.  The
 brute-force closest-hit here (vmapped all-pairs, fine for small scenes like
 samples/scene.json's 36 triangles) shares its Hit layout with the BVH
-traversal kernel so integrators are oblivious to the accelerator.
+traversal so integrators are oblivious to the accelerator.
 
 Parity notes:
 - Möller-Trumbore with the reference's epsilons (triangle.rs:167-180:
@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from ..config import DTYPE
 from ..core import vec
 from ..core.math import quadratic
+from ..core.transform import apply_normal_jnp, apply_point_jnp, apply_vector_jnp
 from ..scene.types import SphereSoA, TriangleSoA
 
 PRIM_NONE = -1
@@ -98,8 +99,8 @@ def intersect_triangles_any(tri: TriangleSoA, o, d, t_max):
 def _sphere_ray_object(sph: SphereSoA, o, d):
     """Transform rays into each sphere's object space: (N,S,3) pair."""
     w2o = sph.w2o  # (S,4,4)
-    oo = jnp.einsum("sij,nj->nsi", w2o[:, :3, :3], o) + w2o[None, :, :3, 3]
-    od = jnp.einsum("sij,nj->nsi", w2o[:, :3, :3], d)
+    oo = apply_point_jnp(w2o[None], o[:, None])
+    od = apply_vector_jnp(w2o[None], d[:, None])
     return oo, od
 
 
@@ -157,8 +158,7 @@ def occluded_brute(tri: TriangleSoA, sph: SphereSoA, o, d, t_max):
 def pack_shade_tables(tri: TriangleSoA, sph: SphereSoA):
     """Concatenate per-primitive shading attributes into single tables so
     surface_interaction does ONE row selection per primitive type instead of
-    ~15 (each table[idx] is a serialized gather on TPU — see
-    core/tableops.py).  Build once per scene, not inside jit."""
+    ~15.  Build once per scene, not inside jit."""
     out = {}
     if tri.count > 0:
         # shading-normal partials (triangle.rs:351-386): per-triangle
@@ -233,7 +233,7 @@ def surface_interaction(
         p0, p1, p2 = tf[:, 0:3], tf[:, 3:6], tf[:, 6:9]
         uv0, uv1, uv2 = tf[:, 9:11], tf[:, 11:13], tf[:, 13:15]
         # recompute barycentrics from the stored hit (cheaper than carrying
-        # u,v through the traversal kernel)
+        # u,v through the traversal)
         e1 = p1 - p0
         e2 = p2 - p0
         pv = jnp.cross(d, e2)
@@ -279,7 +279,7 @@ def surface_interaction(
         sii = take_rows(shade_tables["sph_i"], si)  # (N, 2)
         w2o = sf[:, 0:16].reshape(-1, 4, 4)
         o2w = sf[:, 16:32].reshape(-1, 4, 4)
-        po = jnp.einsum("nij,nj->ni", w2o[:, :3, :3], p_hit) + w2o[:, :3, 3]
+        po = apply_point_jnp(w2o, p_hit)
         radius = sf[:, 32]
         # reproject (sphere.rs does p_hit *= radius / |p_hit|)
         po = po * (radius / jnp.maximum(vec.length(po), 1e-30))[:, None]
@@ -308,17 +308,17 @@ def surface_interaction(
             )
             * dth[:, None]
         )
-        dpdu_s = jnp.einsum("nij,nj->ni", o2w[:, :3, :3], dpdu_o)
-        dpdv_s = jnp.einsum("nij,nj->ni", o2w[:, :3, :3], dpdv_o)
+        dpdu_s = apply_vector_jnp(o2w, dpdu_o)
+        dpdv_s = apply_vector_jnp(o2w, dpdv_o)
         # normal: object-space position transformed as a normal
-        ng_raw = jnp.einsum("nji,nj->ni", w2o[:, :3, :3], po)
+        ng_raw = apply_normal_jnp(w2o, po)
         ng_len = jnp.maximum(vec.length(ng_raw), 1e-30)
         ng_s = ng_raw / ng_len[:, None]
         # sphere normal partials: n = p/r object-space, so dn/du = dpdu/r
         # exactly (the Weingarten form of sphere.rs:215-243 reduces to
         # this); transformed as normals and scaled by the normalization
-        dndu_s = jnp.einsum("nji,nj->ni", w2o[:, :3, :3], dpdu_o) / ng_len[:, None]
-        dndv_s = jnp.einsum("nji,nj->ni", w2o[:, :3, :3], dpdv_o) / ng_len[:, None]
+        dndu_s = apply_normal_jnp(w2o, dpdu_o) / ng_len[:, None]
+        dndv_s = apply_normal_jnp(w2o, dpdv_o) / ng_len[:, None]
         mat_s = sii[:, 0]
         al_s = sii[:, 1]
     else:
@@ -400,10 +400,7 @@ def compute_uv_differentials(si: SurfaceHit, diff):
     dim1 = jnp.where(kmax == 2, 1, 2)
 
     def col(v, k):
-        # v[:, k] for per-row k in {0,1,2} as a select chain — the fancy
-        # v[rows, k] form lowers to a serialized per-row TPU gather
-        # (~2 us/row on the bench chip; 12 of them made this function the
-        # textured path's hidden dominant cost)
+        # v[:, k] for per-row k in {0,1,2} as a select chain (no gather)
         return jnp.where(
             k == 0, v[:, 0], jnp.where(k == 1, v[:, 1], v[:, 2])
         )

@@ -5,9 +5,8 @@ batch advances one node per `lax.while_loop` iteration with masked lanes
 (rays whose stack emptied idle until all finish).  Near-node-first ordering
 uses the stored split axis + ray direction sign like the reference.
 
-This is the portable jnp form; the Pallas kernel (ops/) shares the same
-node/prim layout.  Leaf primitive tests gather (kind, index) rows and run
-single-primitive Möller-Trumbore / sphere tests per lane.
+Leaf primitive tests gather (kind, index) rows and run single-primitive
+Möller-Trumbore / sphere tests per lane.
 """
 
 from typing import NamedTuple
@@ -18,6 +17,7 @@ from jax import lax
 
 from ..config import DTYPE
 from ..core.math import quadratic
+from ..core.transform import apply_point_jnp, apply_vector_jnp
 from .bvh import FlatBVH
 from .geometry import Hit, PRIM_NONE, PRIM_SPHERE, PRIM_TRI, TRI_EPS
 
@@ -48,8 +48,8 @@ def _tri_test(tri, rows, o, d, t_best):
 
 def _sphere_test(sph, rows, o, d, t_best):
     w2o = sph.w2o[rows]
-    oo = jnp.einsum("nij,nj->ni", w2o[:, :3, :3], o) + w2o[:, :3, 3]
-    od = jnp.einsum("nij,nj->ni", w2o[:, :3, :3], d)
+    oo = apply_point_jnp(w2o, o)
+    od = apply_vector_jnp(w2o, d)
     a = jnp.sum(od * od, axis=-1)
     b = 2.0 * jnp.sum(od * oo, axis=-1)
     c = jnp.sum(oo * oo, axis=-1) - sph.radius[rows] ** 2

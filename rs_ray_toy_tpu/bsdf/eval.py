@@ -4,7 +4,7 @@ Implements the reference's Bsdf methods (reflection.rs:252-404) as
 data-parallel code over (N,) hit batches with a static unrolled loop over
 the MAX_LOBES lobe slots.  Lobe kinds are resolved by masked select — every
 kind's math is computed and the per-lobe kind picks — which is the
-branch-free shape the VPU wants.  (Material-sorted dispatch is a later perf
+branch-free form that batches over hits.  (Material-sorted dispatch is a later perf
 phase; the estimator here is what matters first.)
 
 Estimator parity (SURVEY §7 hard part 3): `sample` mirrors
@@ -189,7 +189,7 @@ def gather_lobes(mats, tex_vals, mat_id, static_kinds=None):
     Resolves texture indirection for s0 / roughness / sigma / scale.
     """
     # two fused per-material row selections for all per-lobe tables
-    # (take_rows instead of table[idx]: TPU gathers serialize per-row)
+    # (core/tableops.take_rows)
     from ..core.tableops import take_rows
 
     C = int(mats.get("n_channels", 3))
@@ -224,8 +224,7 @@ def gather_lobes(mats, tex_vals, mat_id, static_kinds=None):
         n_tex = tex_vals.shape[0]
 
         def tex_gather(tex_id, lift=False):
-            # select-chain over the (small) texture registry: the fancy
-            # index tex_vals[id, row] is a serialized gather on TPU
+            # select-chain over the (small) texture registry
             acc = jnp.zeros(tex_id.shape + (3,), tex_vals.dtype)
             for t in range(n_tex):
                 acc = jnp.where(

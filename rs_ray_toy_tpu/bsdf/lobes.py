@@ -2,8 +2,8 @@
 
 The reference assembles a per-hit Vec<Arc<dyn BxDF>> inside each material's
 compute_scattering_functions (matte.rs:35-61, plastic.rs, metal.rs, glass.rs,
-translucent.rs, mirror.rs, mixmat.rs, debug_material.rs).  On TPU that
-dynamic lobe list becomes a *static* per-material recipe compiled at scene
+translucent.rs, mirror.rs, mixmat.rs, debug_material.rs).  On the device
+that dynamic lobe list becomes a *static* per-material recipe compiled at scene
 load into fixed-width SoA rows:
 
     materials[m] -> up to MAX_LOBES lobes, each with a type code, BxDF flag

@@ -11,7 +11,7 @@ Structure:
 - per-sample ray generation (camera.rs:534-580) is pure batched math under
   jit: a static Python loop over the ~13 lens elements, each step a masked
   sphere-intersect + refract over the whole ray batch — no divergence
-  beyond the kill mask, ideal VPU shape.
+  beyond the kill mask.
 
 The lens trace is written array-module-agnostic so the same code runs in
 f64 numpy (host focus solve) and f32 jnp (device megabatch).
@@ -349,8 +349,8 @@ class RealisticCamera:
 
         # to world + normalize
         m = self.cam_to_world
-        o_world = o_out @ m[:3, :3].T + m[:3, 3]
-        d_world = d_out @ m[:3, :3].T
+        o_world = jnp.matmul(o_out, m[:3, :3].T, precision="highest") + m[:3, 3]
+        d_world = jnp.matmul(d_out, m[:3, :3].T, precision="highest")
         d_world = d_world / jnp.maximum(
             jnp.linalg.norm(d_world, axis=-1, keepdims=True), 1e-30
         )
@@ -390,7 +390,7 @@ class RealisticCamera:
         )
         from ..core.tableops import take_rows
 
-        b = take_rows(bounds, r_index)  # (N,4), no TPU gather
+        b = take_rows(bounds, r_index)  # (N,4)
         px = b[..., 0] + u_lens[..., 0] * (b[..., 2] - b[..., 0])
         py = b[..., 1] + u_lens[..., 1] * (b[..., 3] - b[..., 1])
         area = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])

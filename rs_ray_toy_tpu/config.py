@@ -1,11 +1,11 @@
-"""Global configuration for the TPU renderer.
+"""Global configuration for the renderer.
 
-The reference (`/root/reference`, pppKin/rs_ray_toy) computes everything in
-f64 on CPU (`geometry.rs:12-19`).  TPUs have no native f64, so the device
-compute path is f32 throughout; host-side precomputation that is numerically
-sensitive (lens focusing, BVH builds, CDF tables) runs in numpy f64 and is
-then cast down.  Film accumulation uses f32 with per-pass splitting, which is
-ample for the <1e-3 RMSE target at 8-bit PNG output.
+The reference (pppKin/rs_ray_toy) computes everything in f64 on CPU
+(`geometry.rs:12-19`).  The device compute path is f32 throughout (f64 is
+slow or absent on accelerators); host-side precomputation that is
+numerically sensitive (lens focusing, BVH builds, CDF tables) runs in numpy
+f64 and is then cast down.  Film accumulation uses f32 with per-pass
+splitting, which is ample for 8-bit PNG output.
 """
 
 import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Low-discrepancy point machinery (lowdiscrepancy.rs).
 
 Everything is counter-based index math — (dimension, sample_index) -> u —
-which is exactly the stateless shape a TPU wants.  Base-2 uses bit reversal
+which is stateless and batches over rays.  Base-2 uses bit reversal
 (lowdiscrepancy.rs:169-184); general bases run a fixed-trip digit loop
 (lowdiscrepancy.rs:230-238) with the trip count chosen per base so that
 b^trips >= 2^32.

@@ -3,8 +3,8 @@
 The reference's samplers fall back to stateful `thread_rng()`
 (samplers/mod.rs:205-227), which is nondeterministic across runs.  Here every
 uniform is a pure function of (pixel_id, sample_index, dimension, seed) via a
-PCG-style integer hash — bit-stable across runs and devices, and cheap on the
-VPU (a handful of integer ops, no threefry rounds).
+PCG-style integer hash — bit-stable across runs and devices, and cheap
+(a handful of integer ops, no threefry rounds).
 """
 
 import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Sampling warps and distributions (sampling.rs).
 
 Warps are pure batched math.  Distribution1D/2D CDFs are built with cumsum
-(host or device) and sampled with searchsorted — the TPU equivalent of the
+(host or device) and sampled with searchsorted — the batched form of the
 reference's binary search (sampling.rs:46-177).
 """
 

@@ -161,12 +161,12 @@ def _xyz_mat():
 
 def to_xyz(s):
     """(spectrum.rs:2585-2601): (..., N) -> (..., 3)."""
-    return jnp.einsum("cn,...n->...c", _xyz_mat(), s)
+    return jnp.einsum("cn,...n->...c", _xyz_mat(), s, precision="highest")
 
 
 def y(s):
     """Luminance (spectrum.rs:2602-2609)."""
-    return jnp.einsum("n,...n->...", _xyz_mat()[1], s)
+    return jnp.einsum("n,...n->...", _xyz_mat()[1], s, precision="highest")
 
 
 def to_rgb(s):

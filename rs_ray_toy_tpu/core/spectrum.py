@@ -20,7 +20,7 @@ def xyz_to_rgb(xyz):
         ],
         dtype=xyz.dtype,
     )
-    return jnp.einsum("ij,...j->...i", m, xyz)
+    return jnp.einsum("ij,...j->...i", m, xyz, precision="highest")
 
 
 def rgb_to_xyz(rgb):
@@ -33,7 +33,7 @@ def rgb_to_xyz(rgb):
         ],
         dtype=rgb.dtype,
     )
-    return jnp.einsum("ij,...j->...i", m, rgb)
+    return jnp.einsum("ij,...j->...i", m, rgb, precision="highest")
 
 
 def luminance(rgb):

@@ -1,130 +1,27 @@
-"""Small-table row selection without TPU gathers.
+"""Row selection from small device tables.
 
-XLA lowers `table[idx]` (gather) on TPU to a serialized per-row copy
-(~20ns/row): profiling the path integrator showed ~50 such fusions per
-sample pass at 3-5 ms each — the single largest cost in the render loop.
-For the tiny tables a scene actually has (materials, lights, triangle
-attributes), streaming the whole table past every ray is far cheaper than
-random access:
-
-- select-chain (M <= SELECT_MAX): ``sum_m where(idx==m, row_m, 0)`` — one
-  fused VPU pass over the output, exact for every dtype.
-- one-hot matmul (M > SELECT_MAX): ``one_hot(idx) @ table`` on the MXU with
-  precision=HIGHEST (f32-exact row selection for normal floats — subnormals
-  flush to zero in the matmul, which no render quantity reaches; integer
-  tables are routed through f32, exact below 2^24).
-
-On CPU the native gather is fast, so it is kept there (strategy "auto"
-checks the backend at trace time).
-
-The reference has no analogue — its Rust scene access is pointer-chasing
-(primitive.rs, material/mod.rs dyn dispatch); this module is the TPU-native
-replacement for that layer.
+Every per-ray lookup of a material, light or primitive attribute row goes
+through `take_rows`, so the out-of-range policy is decided in one place:
+indices outside [0, M) read as NaN for float tables (jnp.take's default
+fill), never as a neighbouring row.  The reference has no analogue — its
+scene access is pointer-chasing (primitive.rs, material/mod.rs dyn
+dispatch).
 """
 
-import os
-
-import numpy as np
-import jax
 import jax.numpy as jnp
 
-SELECT_MAX = 8
-# 1-wide (scalar-per-row) tables stay on the select chain much longer:
-# the chain is one fused VPU pass (2 ops per entry per element, no
-# materialization), while the one-hot route materializes an (N, M) f32
-# matrix — 118 MB of HBM traffic at N=230K, M=128 (the Halton sampler's
-# per-digit permutation and pixel-offset lookups are exactly this shape)
-SELECT_MAX_SCALAR = 128
-# one-hot matmul costs O(N*M*K) MXU flops — a win over the serialized
-# ~20ns/row gather only while M is small.  At M=19200 (a real mesh's
-# shading table) the one-hot costs ~345 GFLOP per lookup batch (~160 ms
-# measured on the bench chip) vs ~5 ms for the gather.  Crossover:
-# gather ~ N*20ns; onehot ~ N*M*K/FLOPS -> M* ~ 20ns*FLOPS/K ~ O(10^3).
-ONEHOT_MAX = 1024
 
-
-def _select_chain(table, idx):
-    m_rows = table.shape[0]
-    flat = table.reshape((m_rows, -1))
-    zero = jnp.zeros((), flat.dtype)
-    acc = None
-    for m in range(m_rows):
-        term = jnp.where((idx == m)[..., None], flat[m], zero)
-        acc = term if acc is None else acc + term
-    return acc.reshape(idx.shape + table.shape[1:])
-
-
-def _one_hot_mm(table, idx):
-    m_rows = table.shape[0]
-    out_dtype = table.dtype
-    flat = table.reshape((m_rows, -1))
-    if jnp.issubdtype(out_dtype, jnp.floating):
-        ftab = flat
-    else:
-        # integer/bool tables ride the MXU in f32; exact below 2^24
-        ftab = flat.astype(jnp.float32)
-    oh = jax.nn.one_hot(idx, m_rows, dtype=jnp.float32)
-    out = jax.lax.dot_general(
-        oh,
-        ftab.astype(jnp.float32) if ftab.dtype != jnp.float32 else ftab,
-        (((oh.ndim - 1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    if not jnp.issubdtype(out_dtype, jnp.floating):
-        out = jnp.round(out).astype(out_dtype)
-    elif out.dtype != out_dtype:
-        out = out.astype(out_dtype)
-    return out.reshape(idx.shape + table.shape[1:])
-
-
-def take_rows(table, idx, strategy="auto"):
-    """``table[idx]`` for a small first axis, avoiding TPU gathers.
-
-    table: (M, ...) array; idx: integer index array (any shape, values
-    in [0, M) — out-of-range rows produce zeros under "select", clamp
-    under "gather", and zeros under "onehot").
-    """
-    if strategy == "auto":
-        forced = os.environ.get("RS_TABLE_STRATEGY")
-        if forced:
-            strategy = forced
-        elif jax.default_backend() == "cpu":
-            strategy = "gather"
-        elif table.shape[0] <= SELECT_MAX:
-            strategy = "select"
-        elif (
-            int(np.prod(table.shape[1:])) <= 1
-            and table.shape[0] <= SELECT_MAX_SCALAR
-        ):
-            strategy = "select"
-        elif table.shape[0] <= ONEHOT_MAX:
-            strategy = "onehot"
-        else:
-            strategy = "gather"
-    if strategy == "gather":
-        return jnp.take(table, idx, axis=0)
-    if strategy == "select":
-        return _select_chain(table, idx)
-    if strategy == "onehot":
-        return _one_hot_mm(table, idx)
-    raise ValueError(strategy)
+def take_rows(table, idx):
+    """``table[idx]`` along the first axis: (M, ...) table, integer idx of
+    any shape -> idx.shape + table.shape[1:]."""
+    return jnp.take(table, idx, axis=0)
 
 
 def take_axis1(v, idx):
-    """Per-row selection along a small static axis 1: ``v[n, idx[n]]``.
+    """Per-row selection along axis 1: ``v[n, idx[n]]``.
 
-    v: (N, L, ...); idx: (N,) in [0, L).  Replaces take_along_axis, which
-    lowers to a serialized gather on TPU; here a chained where over the L
-    slots — one fused pass, exact for every dtype.
-    """
-    if jax.default_backend() == "cpu" and not os.environ.get("RS_TABLE_STRATEGY"):
-        sel = jnp.take_along_axis(
-            v, idx[(slice(None), None) + (None,) * (v.ndim - 2)], axis=1
-        )
-        return sel[:, 0]
-    n_slots = v.shape[1]
-    acc = v[:, 0]
-    for l in range(1, n_slots):
-        mask = (idx == l).reshape(idx.shape + (1,) * (v.ndim - 2))
-        acc = jnp.where(mask, v[:, l], acc)
-    return acc
+    v: (N, L, ...); idx: (N,) in [0, L)."""
+    sel = jnp.take_along_axis(
+        v, idx[(slice(None), None) + (None,) * (v.ndim - 2)], axis=1
+    )
+    return sel[:, 0]

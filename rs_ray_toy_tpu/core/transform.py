@@ -6,8 +6,8 @@ scene arrays at load time, so the device path only ever sees a small table of
 matrices (sphere prims keep theirs, everything else is pre-baked).
 
 Device application helpers (`apply_point` etc.) take `(.., 4, 4)` matrices and
-broadcast over ray batches as plain batched matmuls — MXU-friendly by
-construction.
+broadcast over ray batches as plain batched products at HIGHEST precision
+(a default-precision float32 product may round its operands to TF32).
 """
 
 import numpy as np
@@ -123,16 +123,19 @@ class Transform:
 # ---- device application (jnp, batched) ----
 
 def apply_point_jnp(m, p):
-    """m: (...,4,4), p: (...,3) -> transformed points."""
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
+    """m: (...,4,4), p: (...,3) -> transformed points (batch dims
+    broadcast)."""
+    return apply_vector_jnp(m, p) + m[..., :3, 3]
 
 
 def apply_vector_jnp(m, v):
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], v)
+    r = m[..., :3, :3]
+    return jnp.einsum("...ij,...j->...i", r, v, precision="highest")
 
 
 def apply_normal_jnp(m_inv, n):
-    return jnp.einsum("...ji,...j->...i", m_inv[..., :3, :3], n)
+    r = m_inv[..., :3, :3]
+    return jnp.einsum("...ji,...j->...i", r, n, precision="highest")
 
 
 def look_rotation(a):

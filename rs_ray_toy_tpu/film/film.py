@@ -11,8 +11,8 @@ merge is a `psum` instead of merge_film_tile's lock.
 
 The 16x16 filter-weight table quirk (film.rs:169-170 writes p.x twice, so
 the table is effectively 1-D in y) is *fixed* here: we evaluate the true
-2-D filter at exact offsets (no table quantization at all — cheaper on TPU
-than a gather).
+2-D filter at exact offsets (no table quantization at all, and no table
+gather).
 """
 
 import math
@@ -62,66 +62,27 @@ def _filter_eval(spec: FilmSpec, dx, dy):
     return jnp.where(inside, w, 0.0)
 
 
-def aligned_fast_path_ok(spec: "FilmSpec") -> bool:
-    """True when add_samples' aligned reshape-add fast path engages for a
-    full-grid batch: box filter fully inside one pixel.  render.py keys
-    the blocked camera-ray layout on this SAME predicate (the fast path
-    stores film rows in ray order; the scatter path is order-free)."""
-    return (
-        spec.filter_type == "BoxFilter"
-        and float(spec.filter_radius[0]) <= 0.5
-        and float(spec.filter_radius[1]) <= 0.5
-    )
-
-
 def add_samples(
-    film: FilmState, spec: FilmSpec, p_film, radiance, sample_weight, aligned=False,
-    interleave=None,
+    film: FilmState, spec: FilmSpec, p_film, radiance, sample_weight,
+    pixel_id=None, valid=None,
 ):
     """FilmTile::add_sample batched (film.rs:77-130).
 
     p_film: (N,2) raster positions; radiance: (N,3) RGB; sample_weight: (N,)
     camera-ray weights.  Returns updated FilmState.
 
-    aligned=True: the batch is exactly the full pixel grid in row-major
-    order with a box filter of radius <= 0.5 — every sample lands on its
-    own pixel, so the scatter-add collapses to a reshape-add (TPU scatters
-    serialize; this is the hot path for per-pixel sample passes).
+    With a box filter of radius <= 0.5 every sample lands on its own pixel.
+    Given pixel_id, the (N,) flat pixel index each sample was drawn for
+    (valid: (N,) mask of real samples), such samples are scatter-added
+    onto that pixel, which is right even for a sample whose float32
+    raster position rounded onto the next pixel's edge.
 
-    interleave=(n_sub, k, SUB): the batch is the pixel grid interleaved
-    at SUB-pixel sub-block granularity — ray r = sub*(k*SUB) + s*SUB +
-    within, so each Pallas packet holds one small pixel block at k
-    samples (render.py's sample-major BVH layout).  The reduce is over
-    the middle (sample) axis instead of a leading copy axis.
+    Otherwise each sample is splatted over the filter footprint around
+    its raster position.
     """
     h, w = film.weight.shape
-    rx, ry_ = float(spec.filter_radius[0]), float(spec.filter_radius[1])
-    if (
-        aligned
-        and aligned_fast_path_ok(spec)
-        and p_film.shape[0] % (h * w) == 0
-    ):
-        if np.isfinite(spec.max_sample_luminance):
-            y = luminance(radiance)
-            s = jnp.where(
-                y > spec.max_sample_luminance,
-                spec.max_sample_luminance / jnp.maximum(y, 1e-20),
-                1.0,
-            )
-            radiance = radiance * s[..., None]
-        xyz = rgb_to_xyz(radiance) * sample_weight[..., None]
-        k = p_film.shape[0] // (h * w)
-        if interleave is not None:
-            n_sub, k_i, sub = interleave
-            assert k_i == k and n_sub * sub == h * w
-            acc = xyz.reshape(n_sub, k, sub, 3).sum(axis=1).reshape(h, w, 3)
-        else:
-            acc = xyz.reshape(k, h, w, 3).sum(axis=0)
-        return FilmState(
-            xyz=film.xyz + acc,
-            weight=film.weight + jnp.full((h, w), float(k), film.weight.dtype),
-            splat_xyz=film.splat_xyz,
-        )
+    rx, ry = float(spec.filter_radius[0]), float(spec.filter_radius[1])
+    own_pixel = spec.filter_type == "BoxFilter" and rx <= 0.5 and ry <= 0.5
     # luminance clamp (film.rs:83-85)
     if np.isfinite(spec.max_sample_luminance):
         y = luminance(radiance)
@@ -131,11 +92,21 @@ def add_samples(
             1.0,
         )
         radiance = radiance * scale[..., None]
+    contrib = rgb_to_xyz(radiance) * sample_weight[..., None]
 
-    xyz = rgb_to_xyz(radiance)
+    if own_pixel and pixel_id is not None:
+        fw = jnp.ones(pixel_id.shape, DTYPE) if valid is None else valid.astype(DTYPE)
+        idx = pixel_id.astype(jnp.int32)
+        xyz = film.xyz.reshape(h * w, 3).at[idx].add(contrib * fw[..., None])
+        wt = film.weight.reshape(h * w).at[idx].add(fw)
+        return FilmState(
+            xyz=xyz.reshape(h, w, 3),
+            weight=wt.reshape(h, w),
+            splat_xyz=film.splat_xyz,
+        )
+
     pdx = p_film[..., 0] - 0.5
     pdy = p_film[..., 1] - 0.5
-    rx, ry = float(spec.filter_radius[0]), float(spec.filter_radius[1])
     # static footprint: every pixel with |px - pd| <= r
     span_x = range(-int(math.ceil(rx - 0.5)), int(math.ceil(rx - 0.5)) + 1) if rx > 0.5 else (0,)
     span_y = range(-int(math.ceil(ry - 0.5)), int(math.ceil(ry - 0.5)) + 1) if ry > 0.5 else (0,)
@@ -145,7 +116,6 @@ def add_samples(
 
     new_xyz = film.xyz
     new_wt = film.weight
-    contrib = xyz * sample_weight[..., None]
     for oy in span_y:
         for ox in span_x:
             px = base_x + ox
@@ -205,10 +175,10 @@ def to_rgb(film: FilmState, spec: FilmSpec, splat_scale=1.0):
 
 def write_png(rgb, path):
     """8-bit sRGB PNG (renderprocess.rs:1501-1530 gamma+clamp semantics)."""
-    from PIL import Image
+    from ..utils.png import write_png as _write
 
     arr = np.asarray(gamma_correct(jnp.asarray(rgb)))
     q = np.clip(255.0 * arr + 0.5, 0.0, 255.0).astype(np.uint8)
-    Image.fromarray(q, "RGB").save(path)
+    _write(path, q)
     colored = int(np.sum(q.sum(axis=-1) > 0))
     return colored

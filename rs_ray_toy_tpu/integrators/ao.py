@@ -17,7 +17,8 @@ from .common import SceneCtx
 def li_ao(ctx: SceneCtx, o, d, cam_weight, sampler, pixel_id, s_idx, spec):
     n = o.shape[0]
     t_max = jnp.full((n,), jnp.inf, DTYPE)
-    hit, si = ctx.intersect_shaded(o, d, t_max)
+    hit = ctx.intersect(o, d, t_max)
+    si = ctx.surface(hit, o, d)
     valid = si.valid & (cam_weight > 0.0)
 
     # build frame; flip normal to face wo (ao.rs does this with the shading

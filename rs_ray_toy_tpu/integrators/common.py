@@ -1,8 +1,8 @@
 """Shared integrator machinery (integrator/mod.rs free functions).
 
 SceneCtx bundles the device tables and exposes closest-hit / any-hit /
-shading entry points so integrators are accelerator-agnostic (brute force
-now, BVH kernel when the accel phase lands).
+shading entry points so integrators do not depend on the accelerator
+(all-pairs intersection or BVH traversal).
 
 estimate_direct mirrors integrator/mod.rs:403-558 in batched form: the
 light-sampling branch with the delta/MIS split, and the BSDF-sampling
@@ -33,8 +33,6 @@ class SceneCtx:
     """Host-side wrapper over SceneBundle device tables."""
 
     def __init__(self, bundle):
-        import os
-
         import numpy as np
 
         self.b = bundle
@@ -86,125 +84,24 @@ class SceneCtx:
             >= 0
         )
 
-        # accelerator choice: dense all-pairs beats pointer chasing on TPU
-        # for small scenes; BVH for the rest (SURVEY §7 step 4)
+        # accelerator choice: all-pairs intersection for small scenes, a
+        # BVH above BRUTE_FORCE_CUTOFF primitives
         from ..accel.bvh import BRUTE_FORCE_CUTOFF, build_bvh
 
         n_prims = int(self.tri.count) + int(self.sph.count)
-        max_leaf = int(os.environ.get("RS_BVH_LEAF", "0")) or bundle.max_prims_in_node
         self.bvh = (
-            build_bvh(self.tri, self.sph, max_leaf)
+            build_bvh(self.tri, self.sph, bundle.max_prims_in_node)
             if n_prims > BRUTE_FORCE_CUTOFF
             else None
         )
-        # Pallas brute-force kernel on TPU (memory-bound otherwise)
-        import jax
-
-        self.use_pallas = (
-            self.bvh is None
-            and int(self.tri.count) > 0
-            and jax.default_backend() not in ("cpu",)
-        )
-        # packet-traversal Pallas kernel for BVH scenes (per-lane jnp
-        # traversal gathers serialize on TPU — ops/bvh_pallas.py)
-        self.bvh_tables = None
-        self._bvh_interpret = jax.default_backend() == "cpu"
-        flag = os.environ.get("RS_BVH_PALLAS", "1")
-        if (
-            self.bvh is not None
-            and flag != "0"
-            and int(self.tri.count) > 0
-        ):
-            from ..ops.bvh_pallas import PALLAS_BVH_PRIM_MAX, pack_bvh_tables
-
-            if int(self.tri.count) <= PALLAS_BVH_PRIM_MAX and (
-                not self._bvh_interpret or flag == "interp"
-            ):
-                # the kernel tables cover TRIANGLES; scenes with spheres
-                # get a triangle-only tree for the kernel (spheres are a
-                # handful of hand-placed lights/subjects — intersected
-                # brute-force and min-combined outside, so mesh scenes no
-                # longer lose the packet kernel to one sphere).
-                # The PACKET kernel wants fat leaves: its while-loop pays
-                # a large fixed cost per pop, and leaf prim tests are
-                # cheap vector work — leaf=16 measured 4.40 vs 3.43
-                # Mrays/s at leaf=4 on the 19200-tri grid (BASELINE.md).
-                # The jnp traversal keeps the scene's max_prims_in_node.
-                kernel_leaf = (
-                    int(os.environ.get("RS_BVH_LEAF", "0")) or 16
-                )
-                if int(self.sph.count) > 0 or kernel_leaf != max_leaf:
-                    from ..scene.types import empty_spheres
-
-                    bvh_tbl = build_bvh(self.tri, empty_spheres(), kernel_leaf)
-                else:
-                    bvh_tbl = self.bvh
-                tables = pack_bvh_tables(bvh_tbl, self.tri)
-                # the kernels clamp their traversal stack at STACK_DEPTH;
-                # deeper trees would silently drop subtrees — use the jnp
-                # traversal instead (binary pushes <=2/pop, BVH4 <=4)
-                from ..ops.bvh_pallas import STACK_DEPTH
-
-                if tables["depth"] * 2 + 4 <= STACK_DEPTH:
-                    self.bvh_tables = tables
-        # sphere-only shade tables for the fused kernel's sphere combine
-        if self.bvh_tables is not None and int(self.sph.count) > 0:
-            from ..scene.types import empty_triangles
-
-            self._empty_tri = empty_triangles()
-            self.sph_shade_tables = geom.pack_shade_tables(
-                self._empty_tri, self.sph
-            )
-        if self.use_pallas or int(self.tri.count) > 0:
-            from ..ops.intersect_pallas import pack_triangles
-
-            self.tri_packed = pack_triangles(
-                np.asarray(self.tri.p0), np.asarray(self.tri.p1), np.asarray(self.tri.p2)
-            )
         # packed shading-attribute tables: one row-selection per hit batch
         self.shade_tables = geom.pack_shade_tables(self.tri, self.sph)
 
     def intersect(self, o, d, t_max):
-        if self.bvh_tables is not None:
-            from ..ops.bvh_pallas import intersect_bvh_pallas
-
-            t, idx, valid = intersect_bvh_pallas(
-                self.bvh_tables, o, d, t_max, interpret=self._bvh_interpret
-            )
-            hit = geom.Hit(
-                t=t,
-                kind=jnp.where(valid, geom.PRIM_TRI, geom.PRIM_NONE),
-                index=idx,
-                valid=valid,
-            )
-            if int(self.sph.count) > 0:
-                hit = self._combine_spheres(hit, o, d, t_max)
-            return hit
         if self.bvh is not None:
             from ..accel.traverse import intersect_bvh
 
             return intersect_bvh(self.bvh, self.tri, self.sph, o, d, t_max)
-        if self.use_pallas:
-            from ..ops.intersect_pallas import intersect_triangles_pallas
-
-            tt, ti, th = intersect_triangles_pallas(self.tri_packed, o, d, t_max)
-            if int(self.sph.count) > 0:
-                st, si_, sh = geom.intersect_spheres(self.sph, o, d, t_max)
-                use_s = st < tt
-                return geom.Hit(
-                    t=jnp.minimum(tt, st),
-                    kind=jnp.where(
-                        use_s, geom.PRIM_SPHERE, jnp.where(th, geom.PRIM_TRI, geom.PRIM_NONE)
-                    ),
-                    index=jnp.where(use_s, si_, ti),
-                    valid=th | sh,
-                )
-            return geom.Hit(
-                t=tt,
-                kind=jnp.where(th, geom.PRIM_TRI, geom.PRIM_NONE),
-                index=ti,
-                valid=th,
-            )
         return geom.intersect_brute(self.tri, self.sph, o, d, t_max)
 
     def surface(self, hit, o, d):
@@ -212,104 +109,11 @@ class SceneCtx:
             self.tri, self.sph, hit, o, d, shade_tables=self.shade_tables
         )
 
-    def intersect_shaded(self, o, d, t_max):
-        """Closest hit + surface interaction, fused where possible.
-
-        On packet-BVH scenes the traversal kernel emits the winning
-        triangle's shading attributes directly (ops/bvh_pallas.py shaded
-        kernel), skipping surface_interaction's per-ray take_rows gathers
-        — the round-2 config-3 bottleneck (~300ms per 230K-ray pass).
-        Everywhere else: plain intersect + surface."""
-        if self.bvh_tables is not None and "shade_f" in self.bvh_tables:
-            from ..ops.bvh_pallas import intersect_bvh_pallas_shaded
-
-            t, idx, valid, at = intersect_bvh_pallas_shaded(
-                self.bvh_tables, o, d, t_max, interpret=self._bvh_interpret
-            )
-            hit = geom.Hit(
-                t=t,
-                kind=jnp.where(valid, geom.PRIM_TRI, geom.PRIM_NONE),
-                index=idx,
-                valid=valid,
-            )
-            t_safe = jnp.where(valid, t, 0.0)
-            si = geom.SurfaceHit(
-                p=o + d * t_safe[:, None],
-                ng=at["ng"],
-                ns=at["ns"],
-                uv=at["uv"],
-                dpdu=at["dpdu"],
-                dpdv=at["dpdv"],
-                wo=-d,
-                mat=jnp.where(valid, at["mat"], -1),
-                area_light=jnp.where(valid, at["area_light"], -1),
-                valid=valid,
-                dndu=at["dndu"],
-                dndv=at["dndv"],
-            )
-            if int(self.sph.count) > 0:
-                hit2 = self._combine_spheres(hit, o, d, t_max)
-                is_s = hit2.kind == geom.PRIM_SPHERE
-                si_s = geom.surface_interaction(
-                    self._empty_tri, self.sph,
-                    geom.Hit(
-                        t=hit2.t,
-                        kind=jnp.where(is_s, geom.PRIM_SPHERE, geom.PRIM_NONE),
-                        index=hit2.index,
-                        valid=is_s,
-                    ),
-                    o, d, shade_tables=self.sph_shade_tables,
-                )
-                sel = is_s[:, None]
-                si = geom.SurfaceHit(
-                    p=jnp.where(sel, si_s.p, si.p),
-                    ng=jnp.where(sel, si_s.ng, si.ng),
-                    ns=jnp.where(sel, si_s.ns, si.ns),
-                    uv=jnp.where(sel, si_s.uv, si.uv),
-                    dpdu=jnp.where(sel, si_s.dpdu, si.dpdu),
-                    dpdv=jnp.where(sel, si_s.dpdv, si.dpdv),
-                    wo=si.wo,
-                    mat=jnp.where(is_s, si_s.mat, si.mat),
-                    area_light=jnp.where(is_s, si_s.area_light, si.area_light),
-                    valid=hit2.valid,
-                    dndu=jnp.where(sel, si_s.dndu, si.dndu),
-                    dndv=jnp.where(sel, si_s.dndv, si.dndv),
-                )
-                return hit2, si
-            return hit, si
-        hit = self.intersect(o, d, t_max)
-        return hit, self.surface(hit, o, d)
-
-    def _combine_spheres(self, hit, o, d, t_max):
-        """Min-combine brute-force sphere hits with the kernel's triangle
-        hits (spheres are few; primitives.rs intersect semantics)."""
-        st, sidx, sh = geom.intersect_spheres(self.sph, o, d, t_max)
-        t_cur = jnp.where(hit.valid, hit.t, t_max)
-        use_s = sh & (st < t_cur)
-        return geom.Hit(
-            t=jnp.where(use_s, st, hit.t),
-            kind=jnp.where(use_s, geom.PRIM_SPHERE, hit.kind),
-            index=jnp.where(use_s, sidx, hit.index),
-            valid=hit.valid | sh,
-        )
-
     def occluded(self, o, d, t_max):
-        if self.bvh_tables is not None:
-            from ..ops.bvh_pallas import occluded_bvh_pallas
-
-            occ = occluded_bvh_pallas(
-                self.bvh_tables, o, d, t_max, interpret=self._bvh_interpret
-            )
-            if int(self.sph.count) > 0:
-                occ = occ | geom.intersect_spheres(self.sph, o, d, t_max)[2]
-            return occ
         if self.bvh is not None:
             from ..accel.traverse import occluded_bvh
 
             return occluded_bvh(self.bvh, self.tri, self.sph, o, d, t_max)
-        if self.use_pallas:
-            hit = self.intersect(o, d, t_max)
-            return hit.valid
         return geom.occluded_brute(self.tri, self.sph, o, d, t_max)
 
     def shade_params(self, si: geom.SurfaceHit, duv=None):
@@ -382,7 +186,7 @@ def shadow_unoccluded(ctx: SceneCtx, si: geom.SurfaceHit, p_light):
     in parametric units (interaction.rs:66-75)."""
     origin = geom.offset_ray_origin(si.p, si.ng, p_light - si.p)
     d = p_light - origin
-    # dead lanes carry t_max = 0 so the packet kernels cull them
+    # dead lanes carry t_max = 0 so traversal culls them
     t_max = jnp.where(si.valid, 1.0 - SHADOW_EPSILON, 0.0).astype(DTYPE)
     return ~ctx.occluded(origin, d, t_max)
 

@@ -76,7 +76,8 @@ def li_levels(ctx: SceneCtx, o, d, cam_weight, sampler, pixel_id, s_idx, spec, d
         dim_base = dim_off + branch * 257
         active = jnp.any(beta != 0.0, axis=-1)
         t_max = jnp.where(active, jnp.inf, 0.0).astype(DTYPE)
-        hit, si = ctx.intersect_shaded(lo, ld_, t_max)
+        hit = ctx.intersect(lo, ld_, t_max)
+        si = ctx.surface(hit, lo, ld_)
         si = si._replace(valid=si.valid & active)
         duv = dpdx = dpdy = None
         if diff is not None:

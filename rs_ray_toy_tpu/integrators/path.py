@@ -39,10 +39,10 @@ def li_path(ctx: SceneCtx, o, d, cam_weight, sampler, pixel_id, s_idx, spec, dif
 
     for bounces in range(spec.max_depth + 1):
         dim0 = sdims.path_dim0(bounces)
-        # dead lanes get t_max = 0: the packet kernels cull them, so a
-        # mostly-dead bounce costs ~one root test per tile
+        # dead lanes get t_max = 0, so traversal culls them at the root
         t_max = jnp.where(active, jnp.inf, 0.0).astype(DTYPE)
-        hit, si = ctx.intersect_shaded(ro, rd, t_max)
+        hit = ctx.intersect(ro, rd, t_max)
+        si = ctx.surface(hit, ro, rd)
         found = hit.valid & active
 
         # emitted light at vertex 0 / after specular (path.rs:79-88):

@@ -162,7 +162,8 @@ def li_volpath(ctx: SceneCtx, o, d, cam_weight, sampler, pixel_id, s_idx, spec, 
     for bounces in range(spec.max_depth + 1):
         dim0 = sdims.volpath_dim0(bounces)
         t_max = jnp.where(active, jnp.inf, 0.0).astype(DTYPE)
-        hit, si = ctx.intersect_shaded(ro, rd, t_max)
+        hit = ctx.intersect(ro, rd, t_max)
+        si = ctx.surface(hit, ro, rd)
         found = hit.valid & active
 
         # ---- medium sampling over the segment (volpath.rs:70-85) ----

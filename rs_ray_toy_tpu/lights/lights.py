@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from ..config import DTYPE, PI
 from ..core import vec
 from ..core.sampling import pdf_2d, sample_continuous_2d, uniform_sample_sphere
+from ..core.transform import apply_normal_jnp, apply_point_jnp, apply_vector_jnp
 from ..scene.types import (
     AREA_SHAPE_SPHERE,
     AREA_SHAPE_TRIANGLE,
@@ -59,7 +60,7 @@ def _env_lookup(env, w_world):
     from ..scene.mipmap import trilinear_lookup
 
     m = env["to_local"]
-    w = vec.normalize(w_world @ m[:3, :3].T)
+    w = vec.normalize(jnp.matmul(w_world, m[:3, :3].T, precision="highest"))
     theta = jnp.arccos(jnp.clip(w[..., 2], -1.0, 1.0))
     phi = jnp.arctan2(w[..., 1], w[..., 0])
     phi = jnp.where(phi < 0.0, phi + 2.0 * PI, phi)
@@ -84,7 +85,7 @@ def sample_li(lights: LightSoA, infinite_envs, light_idx, p_ref, u):
     shading points, u (N,2) uniforms."""
     from ..core.tableops import take_rows
 
-    _row = lambda a: take_rows(a, light_idx)  # no TPU gather (tableops)
+    _row = lambda a: take_rows(a, light_idx)
     kind = _row(lights.kind)
     emit = _row(lights.emit)
     n = p_ref.shape[0]
@@ -114,8 +115,8 @@ def sample_li(lights: LightSoA, infinite_envs, light_idx, p_ref, u):
         w2o = _row(lights.sph_w2o)
         radius = _row(lights.sph_radius)
         p_obj = uniform_sample_sphere(u) * radius[..., None]
-        p_sph = jnp.einsum("nij,nj->ni", o2w[:, :3, :3], p_obj) + o2w[:, :3, 3]
-        n_sph = vec.normalize(jnp.einsum("nji,nj->ni", w2o[:, :3, :3], p_obj))
+        p_sph = apply_point_jnp(o2w, p_obj)
+        n_sph = vec.normalize(apply_normal_jnp(w2o, p_obj))
         # triangle: uniform barycentric (PBRT-intended; see module doc)
         su = jnp.sqrt(jnp.maximum(u[..., 0], 0.0))
         b0 = 1.0 - su
@@ -164,7 +165,7 @@ def sample_li(lights: LightSoA, infinite_envs, light_idx, p_ref, u):
             [sin_t * jnp.cos(phi), sin_t * jnp.sin(phi), jnp.cos(theta)], axis=-1
         )
         m = env["to_world"]
-        wi_e = w_local @ m[:3, :3].T
+        wi_e = jnp.matmul(w_local, m[:3, :3].T, precision="highest")
         pdf_e = jnp.where(
             sin_t > 0.0, map_pdf / (2.0 * PI * PI * jnp.maximum(sin_t, 1e-9)), 0.0
         )
@@ -194,7 +195,7 @@ def pdf_li(lights: LightSoA, infinite_envs, light_idx, p_ref, wi):
     """Light::pdf_li for the BSDF-sampling MIS branch."""
     from ..core.tableops import take_rows
 
-    _row = lambda a: take_rows(a, light_idx)  # no TPU gather (tableops)
+    _row = lambda a: take_rows(a, light_idx)
     kind = _row(lights.kind)
     pdf = jnp.zeros(light_idx.shape, DTYPE)
 
@@ -204,8 +205,8 @@ def pdf_li(lights: LightSoA, infinite_envs, light_idx, p_ref, wi):
         # analytically
         # sphere
         w2o = _row(lights.sph_w2o)
-        oo = jnp.einsum("nij,nj->ni", w2o[:, :3, :3], p_ref) + w2o[:, :3, 3]
-        od = jnp.einsum("nij,nj->ni", w2o[:, :3, :3], wi)
+        oo = apply_point_jnp(w2o, p_ref)
+        od = apply_vector_jnp(w2o, wi)
         a = vec.length_squared(od)
         b = 2.0 * vec.dot(od, oo)
         c = vec.length_squared(oo) - _row(lights.sph_radius) ** 2
@@ -219,8 +220,8 @@ def pdf_li(lights: LightSoA, infinite_envs, light_idx, p_ref, wi):
         hit_s &= tt > 1e-4
         p_hit_o = oo + od * tt[..., None]
         o2w = _row(lights.sph_o2w)
-        p_hit_s = jnp.einsum("nij,nj->ni", o2w[:, :3, :3], p_hit_o) + o2w[:, :3, 3]
-        n_hit_s = vec.normalize(jnp.einsum("nji,nj->ni", w2o[:, :3, :3], p_hit_o))
+        p_hit_s = apply_point_jnp(o2w, p_hit_o)
+        n_hit_s = vec.normalize(apply_normal_jnp(w2o, p_hit_o))
         # triangle
         tp = _row(lights.tri_p)
         e1 = tp[:, 1] - tp[:, 0]
@@ -258,7 +259,7 @@ def pdf_li(lights: LightSoA, infinite_envs, light_idx, p_ref, wi):
         if not bool(np.any(np.asarray(lights.shape_index) == env_id)):
             continue
         m = env["to_local"]
-        w = vec.normalize(wi @ m[:3, :3].T)
+        w = vec.normalize(jnp.matmul(wi, m[:3, :3].T, precision="highest"))
         theta = jnp.arccos(jnp.clip(w[..., 2], -1.0, 1.0))
         phi = jnp.arctan2(w[..., 1], w[..., 0])
         phi = jnp.where(phi < 0, phi + 2 * PI, phi)

@@ -1,110 +1,22 @@
-"""Multi-chip rendering: SPMD over a device mesh.
+"""Multi-chip rendering: the device mesh.
 
 The reference's only parallelism is rayon tile-DP + a locked film merge
-(integrator/mod.rs:64-65, film.rs:248; SURVEY §2.6).  The TPU equivalent is
-data parallelism over the pixel*sample batch via shard_map on a 1-D 'dp'
-mesh: each device traces its slice of the pixel batch against the
-replicated scene, accumulates into a device-local film, and the films are
-summed with a single `psum` — replacing merge_film_tile's RwLock with an
-ICI collective.
+(integrator/mod.rs:64-65, film.rs:248; SURVEY §2.6).  Here it is data
+parallelism over the pixel*sample batch on a flat 1-D 'dp' mesh (every
+card reaches every other at the same rate, so the mesh follows the
+algorithm alone): `render.render_job(mesh=...)` shard_maps each sample
+pass over 'dp', so every device traces its slice of the pixel batch
+against the replicated scene into a device-local film, and the films are
+summed with a single `psum` — replacing merge_film_tile's RwLock with a
+collective.
 """
-
-from functools import partial
 
 import numpy as np
 import jax
-import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
-
-try:  # jax >= 0.6 moved shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
-from ..config import DTYPE
-from ..film import film as fmod
-from ..integrators.common import scrub_radiance
+from jax.sharding import Mesh
 
 
 def make_mesh(n_devices=None, devices=None):
     if devices is None:
         devices = jax.devices()[: n_devices or len(jax.devices())]
     return Mesh(np.array(devices), ("dp",))
-
-
-def sharded_sample_pass(mesh, cam, ctx, sampler, film_spec, li_fn, pixel_xy, pixel_id):
-    """Build a jitted, shard_mapped (film, s_idx) -> film step.
-
-    pixel batch is padded to a multiple of the mesh size and split over
-    'dp'; the film lives replicated and device contributions are psum'd.
-    """
-    n_dev = mesh.devices.size
-    n = pixel_xy.shape[0]
-    pad = (-n) % n_dev
-    if pad:
-        pixel_xy = jnp.concatenate([pixel_xy, jnp.zeros((pad, 2), DTYPE)])
-        pixel_id = jnp.concatenate(
-            [pixel_id, jnp.zeros((pad,), pixel_id.dtype)]
-        )
-    valid = jnp.concatenate(
-        [jnp.ones((n,), bool), jnp.zeros((pad,), bool)]
-    )
-
-    def local_pass(film, s_idx, pxy, pid, pvalid):
-        s_arr = jnp.broadcast_to(s_idx, pid.shape).astype(jnp.uint32)
-        u_film = sampler.get_2d(pid, s_arr, 0)
-        u_lens = sampler.get_2d(pid, s_arr, 1)
-        # padded lanes land out of film bounds so add_samples' bounds mask
-        # zeroes their filter weight too (filter weight is accumulated
-        # independently of sample weight, matching film.rs:77-130)
-        p_film = jnp.where(pvalid[:, None], pxy + u_film, -10.0)
-        o, d, weight = cam.generate_rays(p_film, u_lens)
-        weight = jnp.where(pvalid, weight, 0.0)
-        l = li_fn(o, d, weight, pid, s_arr)
-        l = scrub_radiance(l)
-        l = jnp.where((weight > 0.0)[:, None], l, 0.0)
-        local_film = fmod.add_samples(
-            fmod.FilmState(
-                jnp.zeros_like(film.xyz),
-                jnp.zeros_like(film.weight),
-                jnp.zeros_like(film.splat_xyz),
-            ),
-            film_spec,
-            p_film,
-            l,
-            weight,
-        )
-        # film merge = psum over the mesh (replaces merge_film_tile).
-        # All three components ride the psum — splat_xyz too, so this
-        # helper keeps the production pass's semantics (render.py
-        # render_job) and a splatting integrator wired through it
-        # cannot silently lose light
-        xyz = jax.lax.psum(local_film.xyz, "dp")
-        wt = jax.lax.psum(local_film.weight, "dp")
-        splat = jax.lax.psum(local_film.splat_xyz, "dp")
-        return fmod.FilmState(
-            film.xyz + xyz, film.weight + wt, film.splat_xyz + splat
-        )
-
-    try:
-        smapped = shard_map(
-            local_pass,
-            mesh=mesh,
-            in_specs=(P(), P(), P("dp"), P("dp"), P("dp")),
-            out_specs=P(),
-            check_vma=False,
-        )
-    except TypeError:  # older jax: check_rep
-        smapped = shard_map(
-            local_pass,
-            mesh=mesh,
-            in_specs=(P(), P(), P("dp"), P("dp"), P("dp")),
-            out_specs=P(),
-            check_rep=False,
-        )
-
-    @jax.jit
-    def step(film, s_idx):
-        return smapped(film, s_idx, pixel_xy, pixel_id, valid)
-
-    return step

@@ -21,8 +21,8 @@ Global slots
 2-7: reserved (camera time, future)
 8+: integrator blocks below.
 
-Path integrator (integrators/path.py + ops/path_megakernel.py)
----------------------------------------------------------------
+Path integrator (integrators/path.py)
+-------------------------------------
 Per-bounce block of PATH_DPB slots starting at path_dim0(bounce).
 Offsets (kind):
   +0 NEE light pick (1d)     } uniform_sample_one_light,
@@ -40,7 +40,7 @@ Offsets (kind):
 VolPath (integrators/volpath.py): per-bounce block of VOLPATH_DPB.
   +0 light pick (1d)  +1 light (2d)  +2 scatter counter (2d)
   +3 phase/BSDF next direction (2d)  +4 RR (1d)
-  (medium distance sampling uses the in-kernel hash stream, not slots)
+  (medium distance sampling uses the hash stream, not slots)
 
 SPPM (integrators/sppm.py): camera pass uses the path-style block
   +0..+2 direct light, +5 BSDF next (2d), +6 RR (1d).

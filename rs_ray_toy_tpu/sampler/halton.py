@@ -1,7 +1,7 @@
 """Halton global sampler as pure index math (samplers/halton.rs).
 
-Already counter-based in the reference — ideal TPU shape.  Per-pixel sample
-offsets come from the CRT construction (halton.rs:75-105): we precompute
+Already counter-based in the reference, so it maps to batched index
+math.  Per-pixel sample offsets come from the CRT construction (halton.rs:75-105): we precompute
 the (128 x 128) offset table on host once (the reference recomputes per
 pixel change) and gather on device.
 
@@ -65,9 +65,7 @@ class HaltonSampler:
 
         # host-precomputed per-(px%128) / per-(py%128) sample offsets.
         # Stored as two 1-D tables (off = (ox[px] + oy[py]) % stride) so
-        # the device lookup is two small-table tableops selections — the
-        # (128,128) 2-D form gathers ~13 ms per 230K rays on the bench
-        # chip (tools/profile_halton.py)
+        # the device lookup is two small-table selections
         ox_m = np.zeros(K_MAX_RESOLUTION, np.int64)
         oy_m = np.zeros(K_MAX_RESOLUTION, np.int64)
         if self.sample_stride > 1:
@@ -139,72 +137,6 @@ class HaltonSampler:
 
     def _static_dim(self, dim):
         return isinstance(dim, int) and dim < ld.N_PRIMES
-
-    def payload_grid(self, hal_slots, s_base, k, w, h, layout="raster"):
-        """(NC, k*h*w) slot-value matrix for a full-film megabatch, or
-        None when a slot needs the per-lane RNG fallback (or the layout
-        cannot be expressed gather-free).
-
-        layout="raster": sample-outer raster lanes (lane = s*(h*w) +
-        y*w + x — render.py's non-blocked layout).  layout="blocked32":
-        the 32x32 screen-block order of the SPPM state (key = (by*nbx +
-        bx)*1024 + iy*32 + ix; ragged bottom block-row supported, ragged
-        block-columns not — returns None then).
-
-        The Halton value depends on the pixel ONLY through the CRT offset
-        off(px%128, py%128) (halton.rs:75-105) — 128x128 = 16,384 distinct
-        values per film.  Evaluating each dim on the (k,128,128) offset
-        grid and TILING to the film costs ~1/14 the compute of the
-        per-lane form at 640x360x16 (the radical-inverse digit math was
-        half the fused halton pass), and the broadcast is pure
-        tile/crop/reshape/transpose — no device gather.  Values are
-        bit-identical to get_1d/get_2d: same _dim_value_idx on the same
-        integer index."""
-        dims = []
-        for slot, n in hal_slots:
-            dims.extend((2 * slot,) if n == 1 else (2 * slot, 2 * slot + 1))
-        if any(d >= ld.N_PRIMES for d in dims):
-            return None  # per-lane RNG fallback dims: generic path
-        BS = 32
-        if layout == "blocked32" and w % BS != 0:
-            return None
-        ox = np.asarray(self.offs_x, np.int64)
-        oy = np.asarray(self.offs_y, np.int64)
-        off2d = jnp.asarray(
-            (oy[:, None] + ox[None, :]) % max(self.sample_stride, 1),
-            jnp.int32,
-        )  # (128, 128) [py, px]
-        s = s_base.astype(jnp.int32) + jnp.arange(k, dtype=jnp.int32)
-        idx = off2d[None] + s[:, None, None] * jnp.int32(self.sample_stride)
-        ty = -(-h // K_MAX_RESOLUTION)
-        tx = -(-w // K_MAX_RESOLUTION)
-
-        def broadcast(val):  # (k,128,128) -> (k*h*w,)
-            if layout == "blocked32":
-                # blocked (by, bx, iy, ix) order directly: 128 = 4*32, so
-                # T[(by*32+iy)%128, (bx*32+ix)%128] = T2[by%4, bx%4, iy, ix]
-                # with T2 the (4,4,32,32) re-tiling of T.  Only the TINY
-                # 16K-element table is transposed; the film-sized array is
-                # formed by tile (broadcast) + two static slices for the
-                # ragged bottom block-row.  (An earlier form transposed
-                # the film-sized array itself — a 5-D transpose XLA ran
-                # ~100x slower than the whole SPPM iteration on this chip.)
-                nby, nbx = -(-h // BS), w // BS
-                fby = h // BS
-                t2 = val.reshape(k, 4, BS, 4, BS).transpose(0, 1, 3, 2, 4)
-                big = jnp.tile(t2, (1, -(-nby // 4), -(-nbx // 4), 1, 1))[
-                    :, :nby, :nbx
-                ]  # (k, nby, nbx, 32, 32) in block order
-                parts = [big[:, :fby].reshape(k, -1)]
-                if h % BS:
-                    parts.append(big[:, fby:, :, : h % BS].reshape(k, -1))
-                return jnp.concatenate(parts, axis=1).reshape(k * h * w)
-            full = jnp.tile(val, (1, ty, tx))[:, :h, :w]
-            return full.reshape(k * h * w)
-
-        return jnp.stack(
-            [broadcast(self._dim_value_idx(idx, d)) for d in dims], 0
-        ).astype(jnp.float32)
 
     def get_1d(self, pixel_id, sample_index, dim):
         """Slot d consumes Halton dim 2d — the first of the (2d, 2d+1)

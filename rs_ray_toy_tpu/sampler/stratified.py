@@ -2,7 +2,7 @@
 
 The reference's StratifiedSampler (samplers/stratified.rs) pregenerates
 jittered strata per pixel, shuffles them with thread_rng, and hands them out
-by dimension counter.  The TPU equivalent is a pure function
+by dimension counter.  Here it is a pure function
 
     u(pixel_id, sample_index, dimension) in [0,1)
 

@@ -21,7 +21,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import jax.numpy as jnp
-from PIL import Image
 
 from ..config import DTYPE
 from ..core.transform import Transform
@@ -31,6 +30,7 @@ from ..bsdf.lobes import MaterialTableBuilder, HostMaterial
 from ..bsdf.recipes import RGBParam, FloatParam
 from . import textures as tex
 from .objparser import parse_obj, ObjMesh
+from ..utils.png import read_png
 from .types import (
     AREA_SHAPE_NONE,
     AREA_SHAPE_SPHERE,
@@ -456,7 +456,10 @@ def _make_textures(cfg, root_dir, registry, float_tex, rgb_tex):
 def _load_image(filename, gamma):
     """PNG -> linear float rows flipped so v=0 is the bottom row
     (renderprocess.rs:535-569)."""
-    img = np.asarray(Image.open(filename).convert("RGB"), np.float64) / 255.0
+    img = read_png(filename)
+    # gray -> RGB; alpha is dropped
+    img = np.repeat(img, 3, axis=-1) if img.shape[-1] == 1 else img[..., :3]
+    img = img.astype(np.float64) / 255.0
     if gamma:
         img = np.where(
             img <= 0.04045, img / 12.92, ((img + 0.055) / 1.055) ** 2.4

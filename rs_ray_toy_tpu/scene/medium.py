@@ -22,6 +22,7 @@ from jax import lax
 from ..config import DTYPE, INV_4_PI, PI
 from ..core import vec
 from ..core import rng as rngmod
+from ..core.transform import apply_point_jnp, apply_vector_jnp
 from .loader import MediumSpec
 
 MEDIUM_NONE = -1
@@ -218,8 +219,8 @@ def medium_tr(mediums, med_id, o, d_unit, seg_len, rng_state):
 
     # grid ratio tracking (grid.rs:119-160)
     w2m = mediums["w2m"][mid]
-    om = jnp.einsum("nij,nj->ni", w2m[:, :3, :3], o) + w2m[:, :3, 3]
-    dm_raw = jnp.einsum("nij,nj->ni", w2m[:, :3, :3], d_unit)
+    om = apply_point_jnp(w2m, o)
+    dm_raw = apply_vector_jnp(w2m, d_unit)
     scale = vec.length(dm_raw)
     dm = dm_raw / jnp.maximum(scale, 1e-20)[..., None]
     len_m = seg_len * scale
@@ -307,8 +308,8 @@ def medium_sample(mediums, med_id, o, d_unit, seg_len, rng_state):
 
     # ---- grid delta tracking (grid.rs:162-207) ----
     w2m = mediums["w2m"][mid]
-    om = jnp.einsum("nij,nj->ni", w2m[:, :3, :3], o) + w2m[:, :3, 3]
-    dm_raw = jnp.einsum("nij,nj->ni", w2m[:, :3, :3], d_unit)
+    om = apply_point_jnp(w2m, o)
+    dm_raw = apply_vector_jnp(w2m, d_unit)
     scale = vec.length(dm_raw)
     dm = dm_raw / jnp.maximum(scale, 1e-20)[..., None]
     len_m = seg_len * scale

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 from ..config import DTYPE
 from ..core import vec
-from .mipmap import MIPMap, trilinear_lookup
+from .mipmap import MIPMap
 
 # texture type codes
 TEX_CONSTANT = 0
@@ -95,14 +95,11 @@ class TextureRegistry:
         return len(self.images) - 1
 
     def device_images(self):
-        out = []
-        for m in self.images:
-            d = m.as_device()
-            # packed coarse pyramid for the gather-free MXU lookup path
-            # (~200 KB per image; see MIPMap.as_packed)
-            d["packed"] = m.as_packed()
-            out.append(d)
-        return out
+        # the packed coarse pyramid (~200 KB per image; MIPMap.as_packed)
+        # is what image lookups read: on an H100 the textured bench row
+        # renders 4x faster through it than through the exact per-window
+        # gathers of mipmap.ewa_lookup, which stay as its test reference
+        return [m.as_packed() for m in self.images]
 
 
 def eval_all(registry: TextureRegistry, dev_images, uv, p_world, duv=None):
@@ -146,51 +143,29 @@ def eval_all(registry: TextureRegistry, dev_images, uv, p_world, duv=None):
                 + s * t * jnp.asarray(rec.v11, DTYPE)
             )
         elif rec.kind == TEX_IMAGE:
-            import os as _os
-
             st = _map_2d(rec, uv, p_world)
-            mip = dev_images[rec.image_id]
-            # gather-free MXU lookups on the packed coarse pyramid
-            # (default; RS_TEX_PACKED=0 restores the exact per-window
-            # gather path — ~2 us/ray on the bench chip)
-            packed = (
-                mip.get("packed")
-                if _os.environ.get("RS_TEX_PACKED", "1") != "0"
-                else None
-            )
+            packed = dev_images[rec.image_id]
             if duv is not None and not registry.images[rec.image_id].do_trilinear:
                 # EWA anisotropic filtering (imagemap default:
                 # do_trilinear=False, renderprocess.rs:522)
-                from .mipmap import ewa_lookup, packed_ewa_lookup
+                from .mipmap import packed_ewa_lookup
 
                 su = rec.su if rec.mapping == MAP_UV else 1.0
                 sv = rec.sv if rec.mapping == MAP_UV else 1.0
                 dst0 = jnp.stack([duv[:, 0] * su, duv[:, 1] * sv], axis=-1)
                 dst1 = jnp.stack([duv[:, 2] * su, duv[:, 3] * sv], axis=-1)
-                if packed is not None:
-                    val = packed_ewa_lookup(
-                        packed, st, dst0, dst1,
-                        registry.images[rec.image_id].max_aniso,
-                    ) * rec.scale
-                else:
-                    val = (
-                        ewa_lookup(
-                            mip, st, dst0, dst1,
-                            registry.images[rec.image_id].max_aniso,
-                        )
-                        * rec.scale
-                    )
+                val = packed_ewa_lookup(
+                    packed, st, dst0, dst1,
+                    registry.images[rec.image_id].max_aniso,
+                ) * rec.scale
             else:
+                from .mipmap import packed_trilinear_lookup
+
                 fp = footprint(rec, (rec.su, rec.sv)) if rec.mapping == MAP_UV else footprint(rec)
                 width = None
                 if fp is not None:
                     width = 2.0 * jnp.maximum(fp[0], fp[1])
-                if packed is not None:
-                    from .mipmap import packed_trilinear_lookup
-
-                    val = packed_trilinear_lookup(packed, st, width) * rec.scale
-                else:
-                    val = trilinear_lookup(mip, st, width) * rec.scale
+                val = packed_trilinear_lookup(packed, st, width) * rec.scale
         elif rec.kind == TEX_UV:
             st = _map_2d(rec, uv, p_world)
             val = jnp.stack(
@@ -272,7 +247,7 @@ def eval_all(registry: TextureRegistry, dev_images, uv, p_world, duv=None):
 
 def _apply44(m, p):
     m = jnp.asarray(m, DTYPE)
-    return p @ m[:3, :3].T + m[:3, 3]
+    return jnp.matmul(p, m[:3, :3].T, precision="highest") + m[:3, 3]
 
 
 def _map_2d(rec, uv, p_world):

@@ -12,16 +12,21 @@ primitives.rs:14-39, scene.rs:13-19) becomes flat device tables:
 - materials are rows into a lobe table (see bsdf/lobes.py);
 - lights are a typed SoA table.
 
-Everything is a flax.struct dataclass => a pytree jit/shard_map can carry.
+Every table is a frozen dataclass registered as a pytree, so jit and
+shard_map can carry it.
 """
 
-from typing import Any, Dict
+import dataclasses
 
-import flax.struct
+import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..config import DTYPE
+
+
+def _table(cls):
+    return jax.tree_util.register_dataclass(dataclasses.dataclass(frozen=True)(cls))
+
 
 # light type codes
 LIGHT_POINT = 0
@@ -36,7 +41,7 @@ AREA_SHAPE_SPHERE = 0
 AREA_SHAPE_TRIANGLE = 1
 
 
-@flax.struct.dataclass
+@_table
 class TriangleSoA:
     p0: jnp.ndarray  # (T,3)
     p1: jnp.ndarray
@@ -65,7 +70,7 @@ class TriangleSoA:
         return self.p0.shape[0]
 
 
-@flax.struct.dataclass
+@_table
 class SphereSoA:
     o2w: jnp.ndarray  # (S,4,4)
     w2o: jnp.ndarray  # (S,4,4)
@@ -85,7 +90,7 @@ class SphereSoA:
         return self.radius.shape[0]
 
 
-@flax.struct.dataclass
+@_table
 class LightSoA:
     kind: jnp.ndarray  # (L,) int32 LIGHT_*
     # point: world position; distant: (unused); diffuse: shape ref

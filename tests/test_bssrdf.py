@@ -21,7 +21,7 @@ import jax.numpy as jnp
 from rs_ray_toy_tpu.bsdf import bssrdf as bss
 from rs_ray_toy_tpu.bsdf.eval import fr_dielectric
 
-SAMPLES = "/root/reference/samples"
+from rs_ray_toy_tpu.scene.gen import SAMPLES_DIR as SAMPLES
 
 
 def test_sr_profile_integrates_to_albedo():

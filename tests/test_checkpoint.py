@@ -1,6 +1,6 @@
 """Checkpoint/resume equivalence (SURVEY §5: film + sampler counters are
 pure arrays — a resumed render must reproduce the uninterrupted one
-exactly, including under the blocked camera-ray layout of BVH scenes)."""
+exactly, on the all-pairs path and on BVH scenes)."""
 
 import json
 import os
@@ -9,14 +9,16 @@ import tempfile
 
 import numpy as np
 
+from rs_ray_toy_tpu.scene.gen import SAMPLES_DIR as SAMPLES
+
 
 def _scene(path_dir):
-    cfg = json.load(open("/root/reference/samples/scene.json"))
+    cfg = json.load(open(os.path.join(SAMPLES, "scene.json")))
     cfg["Film"]["xres"], cfg["Film"]["yres"] = 40, 24
     # depth 2 keeps the fast tier quick (the test pins resume cursor
-    # arithmetic + film re-blocking, not transport depth)
+    # arithmetic, not transport depth)
     cfg["Integrator"] = {"integrator_type": "Path", "max_depth": 2}
-    shutil.copy("/root/reference/samples/cube.obj", path_dir)
+    shutil.copy(os.path.join(SAMPLES, "cube.obj"), path_dir)
     p = os.path.join(path_dir, "s.json")
     json.dump(cfg, open(p, "w"))
     return p
@@ -48,14 +50,13 @@ def test_checkpoint_resume_bitexact():
     np.testing.assert_array_equal(full, resumed)
 
 
-def test_checkpoint_resume_blocked_layout(monkeypatch):
-    """BVH scenes render in blocked ray order; checkpoints store the
-    raster layout and must be re-blocked on resume."""
+def test_checkpoint_resume_bvh_scene():
+    """A 432-triangle grid renders through BVH traversal; resuming it from
+    a checkpoint reproduces the uninterrupted render."""
     from rs_ray_toy_tpu.render import render_job
     from rs_ray_toy_tpu.scene.gen import write_grid_scene
     from rs_ray_toy_tpu.scene.loader import load_scene
 
-    monkeypatch.setenv("RS_BVH_PALLAS", "interp")
     td = tempfile.mkdtemp()
     p = write_grid_scene(td, ny=6, nz=6, xres=48, yres=32, max_depth=2)
     ck = os.path.join(td, "ck.npz")

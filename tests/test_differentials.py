@@ -8,6 +8,8 @@ directions — an analytic identity of the PBRT formula.  Degenerate
 """
 
 import numpy as np
+
+from rs_ray_toy_tpu.scene.gen import SAMPLES_DIR as SAMPLES
 import jax.numpy as jnp
 
 from rs_ray_toy_tpu.accel import geometry as geom
@@ -104,7 +106,7 @@ def test_sphere_dndu_matches_finite_difference():
     the parametric directions."""
     import json, shutil, tempfile, os
 
-    cfg = json.load(open("/root/reference/samples/scene.json"))
+    cfg = json.load(open(os.path.join(SAMPLES, "scene.json")))
     cfg["materials"] = [
         {"material_type": "MatteMaterial", "material_name": "m"}
     ]
@@ -117,7 +119,7 @@ def test_sphere_dndu_matches_finite_difference():
         }
     ]
     td = tempfile.mkdtemp()
-    shutil.copy("/root/reference/samples/cube.obj", td)
+    shutil.copy(os.path.join(SAMPLES, "cube.obj"), td)
     p = os.path.join(td, "s.json")
     json.dump(cfg, open(p, "w"))
     from rs_ray_toy_tpu.scene.loader import load_scene
@@ -150,9 +152,9 @@ def test_triangle_flat_mesh_dnd_zero():
     (has_n=0) meshes must produce exactly zero."""
     import json, shutil, tempfile, os
 
-    cfg = json.load(open("/root/reference/samples/scene.json"))
+    cfg = json.load(open(os.path.join(SAMPLES, "scene.json")))
     td = tempfile.mkdtemp()
-    shutil.copy("/root/reference/samples/cube.obj", td)
+    shutil.copy(os.path.join(SAMPLES, "cube.obj"), td)
     p = os.path.join(td, "s.json")
     json.dump(cfg, open(p, "w"))
     from rs_ray_toy_tpu.scene.loader import load_scene

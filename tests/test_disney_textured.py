@@ -6,6 +6,8 @@ texture must actually vary the BSDF per hit.
 """
 
 import numpy as np
+
+from rs_ray_toy_tpu.scene.gen import SAMPLES_DIR as SAMPLES
 import pytest
 import jax.numpy as jnp
 
@@ -122,7 +124,7 @@ def test_textured_color_varies_per_hit():
     loader)."""
     import json, os, shutil, tempfile
 
-    cfg = json.load(open("/root/reference/samples/scene.json"))
+    cfg = json.load(open(os.path.join(SAMPLES, "scene.json")))
     cfg["Film"]["xres"], cfg["Film"]["yres"] = 40, 24
     cfg["Integrator"] = {"integrator_type": "Path", "max_depth": 3}
     cfg["materials"] = [
@@ -136,8 +138,8 @@ def test_textured_color_varies_per_hit():
     for p in cfg["Aggregate"]["primitives"]:
         p["material_name"] = "m"
     td = tempfile.mkdtemp()
-    shutil.copy("/root/reference/samples/cube.obj", td)
-    shutil.copy("/root/reference/samples/s_01.png", td)
+    shutil.copy(os.path.join(SAMPLES, "cube.obj"), td)
+    shutil.copy(os.path.join(SAMPLES, "s_01.png"), td)
     path = os.path.join(td, "s.json")
     json.dump(cfg, open(path, "w"))
     from rs_ray_toy_tpu.scene.loader import load_scene

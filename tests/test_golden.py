@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
-SAMPLES = "/root/reference/samples"
+from rs_ray_toy_tpu.scene.gen import SAMPLES_DIR as SAMPLES
 
 
 def _tiny_job(integrator="debug", **integ_kw):
@@ -107,15 +107,6 @@ def test_golden_sphere_arealight_path():
     _check("sphere_area_40x24_2spp", rgb)
 
 
-@pytest.mark.parametrize("strategy", ["select", "onehot"])
-def test_golden_path_with_forced_strategy(monkeypatch, strategy):
-    """Render the path golden with the TPU table strategies forced on CPU:
-    validates select-chain / one-hot row selection in situ (must reproduce
-    the gather-built golden within float tolerance)."""
-    monkeypatch.setenv("RS_TABLE_STRATEGY", strategy)
-    _check("path_40x24_2spp", _render(_tiny_job("path", max_depth=4), 2))
-
-
 def _material_job(material, max_depth=4):
     import json, shutil, tempfile
 
@@ -133,15 +124,13 @@ def _material_job(material, max_depth=4):
     return load_scene(path)
 
 
-def test_golden_plastic_path(monkeypatch):
+def test_golden_plastic_path():
     """Drift guard for the microfacet (TR dielectric) jnp path."""
-    monkeypatch.setenv("RS_MEGAKERNEL", "0")
     _check("plastic_40x24_2spp", _render(_material_job("mat_plastic"), 2))
 
 
-def test_golden_metal_path(monkeypatch):
+def test_golden_metal_path():
     """Drift guard for the conductor-fresnel microfacet jnp path."""
-    monkeypatch.setenv("RS_MEGAKERNEL", "0")
     _check("metal_40x24_2spp", _render(_material_job("mat_metal"), 2))
 
 

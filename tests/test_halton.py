@@ -138,77 +138,3 @@ def test_nonuniform_film_axes():
     assert offs.min() >= 0 and offs.max() < h.sample_stride
     # all 128x128 pixel offsets distinct (CRT bijectivity)
     assert len(np.unique(offs)) == 128 * 128
-
-
-def test_payload_grid_matches_per_lane():
-    """payload_grid (128x128 CRT-offset grid tiled to the film) must be
-    bit-identical to the per-lane _halton_u payload on the raster-tiled
-    sample-outer layout (lane = s*(h*w) + y*w + x)."""
-    from rs_ray_toy_tpu.ops.path_megakernel import _halton_u
-
-    w, h, k = 150, 70, 3  # w > 128 exercises the px%128 tiling wrap
-    sampler = HaltonSampler(
-        SamplerSpec(kind="halton", nsamp=16, sample_at_center=False),
-        w, h, seed=0,
-    )
-    slots = ((0, 2), (1, 2), (2, 1), (3, 2), (7, 2), (9, 1))
-    s_base = jnp.uint32(4)
-    grid_u = sampler.payload_grid(slots, s_base, k, w, h)
-    assert grid_u is not None
-
-    ys, xs = np.mgrid[0:h, 0:w]
-    pid = jnp.asarray(np.tile((ys * w + xs).ravel(), k), jnp.uint32)
-    soff = jnp.asarray(np.repeat(np.arange(k), h * w), jnp.uint32)
-    lane_u = _halton_u(sampler, pid, s_base + soff, slots)
-
-    assert grid_u.shape == lane_u.shape
-    assert np.array_equal(np.asarray(grid_u), np.asarray(lane_u)), (
-        np.abs(np.asarray(grid_u) - np.asarray(lane_u)).max()
-    )
-
-
-def test_payload_grid_center_and_fallback():
-    sampler = HaltonSampler(
-        SamplerSpec(kind="halton", nsamp=4, sample_at_center=True),
-        64, 36, seed=0,
-    )
-    u = sampler.payload_grid(((0, 2), (2, 1)), jnp.uint32(0), 2, 64, 36)
-    assert np.all(np.asarray(u[0]) == 0.5) and np.all(np.asarray(u[1]) == 0.5)
-    # a slot past the prime table forces the per-lane RNG fallback
-    big = ld.N_PRIMES // 2
-    assert sampler.payload_grid(((big, 2),), jnp.uint32(0), 1, 64, 36) is None
-
-
-def test_payload_grid_blocked32_matches_per_lane():
-    """blocked32 layout reproduces the SPPM blocked pixel order exactly
-    (key = (by*nbx+bx)*1024 + iy*32 + ix, ragged bottom block-row)."""
-    from rs_ray_toy_tpu.ops.path_megakernel import _halton_u
-
-    w, h = 160, 72  # h % 32 = 8 ragged, w % 32 = 0
-    sampler = HaltonSampler(
-        SamplerSpec(kind="halton", nsamp=8, sample_at_center=False),
-        w, h, seed=0,
-    )
-    slots = ((0, 2), (1, 2), (3, 1), (4, 2))
-    grid_u = sampler.payload_grid(
-        slots, jnp.uint32(2), 1, w, h, layout="blocked32"
-    )
-    assert grid_u is not None
-
-    ys, xs = np.mgrid[0:h, 0:w]
-    xs, ys = xs.ravel(), ys.ravel()
-    BS = 32
-    key = (
-        ((ys // BS) * ((w + BS - 1) // BS) + (xs // BS)) * (BS * BS)
-        + (ys % BS) * BS + (xs % BS)
-    )
-    perm = np.argsort(key, kind="stable")
-    pid = jnp.asarray((ys * w + xs)[perm], jnp.uint32)
-    sid = jnp.full((h * w,), 2, jnp.uint32)
-    lane_u = _halton_u(sampler, pid, sid, slots)
-    assert np.array_equal(np.asarray(grid_u), np.asarray(lane_u))
-
-    # ragged block-COLUMNS are not expressible: must fall back
-    assert sampler.payload_grid(
-        slots, jnp.uint32(0), 1, 150, 64, layout="blocked32"
-    ) is None

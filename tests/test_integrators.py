@@ -8,6 +8,7 @@ import tempfile
 import numpy as np
 import jax.numpy as jnp
 
+from rs_ray_toy_tpu.scene.gen import FOG_MEDIUM
 from tests.test_golden import GOLDEN_DIR, SAMPLES, _check, _render
 
 
@@ -37,10 +38,12 @@ def test_ao_renders():
 def test_volpath_fog_golden():
     def mut(cfg):
         cfg["Integrator"] = {"integrator_type": "Volpath", "max_depth": 3}
-        cfg["Camera"]["medium"] = {"medium_type": "Homogeneous", "g": 0.0}
+        cfg["Camera"]["medium"] = dict(FOG_MEDIUM)
 
     rgb = _render(_job(mut), 2)
     assert np.isfinite(rgb).all()
+    # the cubes show through the fog, and the fog scatters the lights
+    assert rgb.max() > 0.1 and (rgb.max(-1) > 1e-2).sum() > 100
     _check("volpath_fog_40x24_2spp", rgb)
 
 

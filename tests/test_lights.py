@@ -75,15 +75,15 @@ def test_area_light_sphere_sampling():
 
 
 def test_env_light_sampling_prefers_bright_texels():
-    import rs_ray_toy_tpu.scene.loader as ldr
-    from PIL import Image
     import tempfile, os
+
+    from rs_ray_toy_tpu.utils.png import write_png
 
     img = np.zeros((16, 32, 3), np.uint8)
     img[4, 20] = 255  # one bright texel
     with tempfile.TemporaryDirectory() as td:
         pth = os.path.join(td, "env.png")
-        Image.fromarray(img).save(pth)
+        write_png(pth, img)
         env = _build_env_map(pth, Transform())
     entries = [
         dict(kind=3, emit=np.ones(3), env_id=0),

@@ -23,7 +23,7 @@ import jax.numpy as jnp
 
 from rs_ray_toy_tpu.sampler.stratified import StratifiedSampler
 
-SAMPLES = "/root/reference/samples"
+from rs_ray_toy_tpu.scene.gen import SAMPLES_DIR as SAMPLES
 
 
 class _AuditSampler(StratifiedSampler):

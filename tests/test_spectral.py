@@ -7,6 +7,8 @@ sampled-spectral rendering of a conductor differs from the RGB pipeline
 """
 
 import numpy as np
+
+from rs_ray_toy_tpu.scene.gen import SAMPLES_DIR as SAMPLES
 import jax.numpy as jnp
 
 from rs_ray_toy_tpu.core import cie_data as cd
@@ -162,15 +164,16 @@ def test_spectral_render_end_to_end():
     from rs_ray_toy_tpu.scene.loader import load_scene
     from rs_ray_toy_tpu.render import render_job
 
-    cfg = json.load(open("/root/reference/samples/scene.json"))
-    cfg["Film"]["xres"], cfg["Film"]["yres"] = 40, 24
+    cfg = json.load(open(os.path.join(SAMPLES, "scene.json")))
+    # 64x36: enough pixels on the base scene's cubes for the lit-set gate
+    cfg["Film"]["xres"], cfg["Film"]["yres"] = 64, 36
     cfg["Integrator"] = {"integrator_type": "Path", "max_depth": 3}
     for p in cfg["Aggregate"]["primitives"]:
         p["material_name"] = "mat_matte"
     # matte kd must be constant (textured params are outside the spectral
     # subset); scene.json's mat_matte already is
     td = tempfile.mkdtemp()
-    shutil.copy("/root/reference/samples/cube.obj", td)
+    shutil.copy(os.path.join(SAMPLES, "cube.obj"), td)
     path = os.path.join(td, "s.json")
     json.dump(cfg, open(path, "w"))
 
@@ -208,13 +211,13 @@ def test_spectral_metal_render_differs_more():
     from rs_ray_toy_tpu.render import render_job
 
     def render_pair(material):
-        cfg = json.load(open("/root/reference/samples/scene.json"))
+        cfg = json.load(open(os.path.join(SAMPLES, "scene.json")))
         cfg["Film"]["xres"], cfg["Film"]["yres"] = 40, 24
         cfg["Integrator"] = {"integrator_type": "Path", "max_depth": 3}
         for p in cfg["Aggregate"]["primitives"]:
             p["material_name"] = material
         td = tempfile.mkdtemp()
-        shutil.copy("/root/reference/samples/cube.obj", td)
+        shutil.copy(os.path.join(SAMPLES, "cube.obj"), td)
         path = os.path.join(td, "s.json")
         json.dump(cfg, open(path, "w"))
         out = []
@@ -255,12 +258,12 @@ def _spectral_pair(mutate, spp=2, seed=0):
     from rs_ray_toy_tpu.scene.loader import load_scene
     from rs_ray_toy_tpu.render import render_job
 
-    cfg = json.load(open("/root/reference/samples/scene.json"))
+    cfg = json.load(open(os.path.join(SAMPLES, "scene.json")))
     cfg["Film"]["xres"], cfg["Film"]["yres"] = 40, 24
     mutate(cfg)
     td = tempfile.mkdtemp()
-    shutil.copy("/root/reference/samples/cube.obj", td)
-    shutil.copy("/root/reference/samples/s_01.png", td)
+    shutil.copy(os.path.join(SAMPLES, "cube.obj"), td)
+    shutil.copy(os.path.join(SAMPLES, "s_01.png"), td)
     path = os.path.join(td, "s.json")
     json.dump(cfg, open(path, "w"))
     rgb = np.asarray(
@@ -342,6 +345,8 @@ def test_spectral_textured_matte():
     image in aggregate energy."""
 
     def mut(cfg):
+        # 64x36: enough pixels on the base scene's cubes for the lit-set gate
+        cfg["Film"]["xres"], cfg["Film"]["yres"] = 64, 36
         cfg["Integrator"] = {"integrator_type": "Path", "max_depth": 3}
         cfg["materials"].append(
             {
